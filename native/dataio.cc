@@ -1,12 +1,12 @@
-// Native IO helpers for porousfreezethaw_tpu.
+// Native IO helpers for porousfreezethaw.
 //
 // The reference implements its entire IO stack natively (libsource/dataIO,
 // NetCDF block transcribe-and-send in intertrack.c:2459-2546, per-row CSV
-// snapshot writes in spheres_*.c).  The TPU framework keeps IO off the
+// snapshot writes in spheres_*.c).  This framework keeps IO off the
 // accelerator's critical path, but snapshot formatting is still host work
 // that scales with grid/particle count; this module provides the hot
 // encoders as a small C++ library bound via ctypes
-// (porousfreezethaw_tpu/native.py), with pure-Python fallbacks.
+// (porousfreezethaw/native.py), with pure-Python fallbacks.
 //
 // Build: native/build.sh  (g++ -O3 -shared -fPIC)
 

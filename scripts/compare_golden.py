@@ -61,7 +61,7 @@ def parse_log(path: str):
 
 
 def observables(case_dir: str):
-    from porousfreezethaw_tpu.analysis import series_statistics
+    from porousfreezethaw.analysis import series_statistics
     try:
         return series_statistics(case_dir)
     except Exception:
@@ -101,7 +101,7 @@ def compare_case(case: str, ref_dir: str, our_dirs):
         ratio = final[0] / ref_final[0]
         speed = (ref_wall / wall) if wall and ref_wall else None
         lines.append(
-            f"| {label} (1 TPU v5e chip) | {final[0]:,} | {final[1]:,} | "
+            f"| {label} | {final[0]:,} | {final[1]:,} | "
             f"{ratio:.3f} | {fmt_time(wall)} | "
             f"{speed:.1f}x |" if speed else
             f"| {label} | {final[0]:,} | {final[1]:,} | {ratio:.3f} | "

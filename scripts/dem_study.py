@@ -35,9 +35,9 @@ def main():
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
 
-    from porousfreezethaw_tpu.analysis import eps_s
-    from porousfreezethaw_tpu.apps.spheres import main as spheres_main
-    from porousfreezethaw_tpu.io.csv_snaps import read_dem_snapshot
+    from porousfreezethaw.analysis import eps_s
+    from porousfreezethaw.apps.spheres import main as spheres_main
+    from porousfreezethaw.io.csv_snaps import read_dem_snapshot
     import numpy as np
 
     results = []

@@ -19,8 +19,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from porousfreezethaw_tpu.io.csv_snaps import read_dem_snapshot  # noqa: E402
-from porousfreezethaw_tpu.io.exporters import ppm_export  # noqa: E402
+from porousfreezethaw.io.csv_snaps import read_dem_snapshot  # noqa: E402
+from porousfreezethaw.io.exporters import ppm_export  # noqa: E402
 
 
 def render(path: str, out: str, r: float = 0.1, size: int = 400,

@@ -12,7 +12,7 @@ rounding noise has an h-independent floor — so eps at tiny h IS the
 floor, attributed per field.  Determines whether a double-f32 (or f64)
 u alone would restore reference step counts at MR (round-4 design).
 
-Usage: PYTHONPATH=/root/repo:$PYTHONPATH python scripts/repros/_r3_noise_floor_attribution.py <snapshot.ncd>
+Usage: PYTHONPATH=. python scripts/repros/_r3_noise_floor_attribution.py <snapshot.ncd>
 """
 import sys
 
@@ -24,11 +24,11 @@ jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 
-from porousfreezethaw_tpu.cases import freezing_params_text
-from porousfreezethaw_tpu.config import parse_param_file
-from porousfreezethaw_tpu.core.grid import GridGeometry
-from porousfreezethaw_tpu.io.netcdf3 import read_netcdf
-from porousfreezethaw_tpu.models.freezing import FreezingParams, make_rhs
+from porousfreezethaw.cases import freezing_params_text
+from porousfreezethaw.config import parse_param_file
+from porousfreezethaw.core.grid import GridGeometry
+from porousfreezethaw.io.netcdf3 import read_netcdf
+from porousfreezethaw.models.freezing import FreezingParams, make_rhs
 
 path = sys.argv[1]
 data = read_netcdf(path)

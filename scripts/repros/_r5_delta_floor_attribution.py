@@ -39,13 +39,13 @@ jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 
-from porousfreezethaw_tpu.cases import freezing_params_text
-from porousfreezethaw_tpu.config import parse_param_file
-from porousfreezethaw_tpu.core.grid import GridGeometry
-from porousfreezethaw_tpu.io.netcdf3 import read_netcdf
-from porousfreezethaw_tpu.models.freezing import FreezingParams, make_rhs
-from porousfreezethaw_tpu.models.freezing.delta import make_g_rhs
-from porousfreezethaw_tpu.models.freezing.parameters import (
+from porousfreezethaw.cases import freezing_params_text
+from porousfreezethaw.config import parse_param_file
+from porousfreezethaw.core.grid import GridGeometry
+from porousfreezethaw.io.netcdf3 import read_netcdf
+from porousfreezethaw.models.freezing import FreezingParams, make_rhs
+from porousfreezethaw.models.freezing.delta import make_g_rhs
+from porousfreezethaw.models.freezing.parameters import (
     shift_temperature_origin)
 
 path = sys.argv[1]

@@ -19,7 +19,7 @@ simulated second == 1/mean accepted h).
   genuine trajectory divergence, and double-f32 would buy nothing.
 
 Usage: python scripts/repros/_r5_state_roughness_probe.py \
-           /tmp/golden_r4/MR-GradP-delta/image.050.ncd [n_attempts]
+           <MR-GradP-delta run>/image.050.ncd [n_attempts]
 """
 import sys
 import time
@@ -32,15 +32,15 @@ jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 
-from porousfreezethaw_tpu.cases import freezing_params_text
-from porousfreezethaw_tpu.config import parse_param_file
-from porousfreezethaw_tpu.core.grid import GridGeometry
-from porousfreezethaw_tpu.io.netcdf3 import read_netcdf
-from porousfreezethaw_tpu.models.freezing import FreezingParams
-from porousfreezethaw_tpu.models.freezing.delta import XlaDeltaAttempt
-from porousfreezethaw_tpu.models.freezing.parameters import (
+from porousfreezethaw.cases import freezing_params_text
+from porousfreezethaw.config import parse_param_file
+from porousfreezethaw.core.grid import GridGeometry
+from porousfreezethaw.io.netcdf3 import read_netcdf
+from porousfreezethaw.models.freezing import FreezingParams
+from porousfreezethaw.models.freezing.delta import XlaDeltaAttempt
+from porousfreezethaw.models.freezing.parameters import (
     shift_temperature_origin)
-from porousfreezethaw_tpu.solvers.merson import (
+from porousfreezethaw.solvers.merson import (
     MersonParams, merson_init, merson_solve)
 
 path = sys.argv[1]

@@ -17,7 +17,7 @@ for case in freeze-thaw-10h-Temp freeze-thaw-10h-SigmaP1-P \
   mkdir -p "$dir"
   if [ -f "$dir/DONE" ]; then echo "skip $case (done)"; continue; fi
   echo "=== $case ($PREC) start: $(date)"
-  OUTPUT=$dir python -m porousfreezethaw_tpu.apps.intertrack \
+  OUTPUT=$dir python -m porousfreezethaw.apps.intertrack \
     "$CASES/$case/Params" --precision "$PREC" "$@" \
     > "$dir/stdout.txt" 2>&1 && touch "$dir/DONE"
   echo "=== $case end: $(date) rc=$?"

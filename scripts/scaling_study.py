@@ -3,7 +3,7 @@
 
 The reference sweeps 1..32 OpenMP threads over the DEM workload; this
 sweeps device-mesh sizes over the freezing solve on the virtual CPU mesh
-(and runs trivially on a real multi-chip slice).  For each mesh size it
+or on several GPUs.  For each mesh size it
 times a fixed number of attempted Merson steps and reports cell-RHS-evals/s
 and parallel efficiency vs 1 device.
 
@@ -14,8 +14,8 @@ Usage:
 NOTE: on the virtual CPU mesh the multi-device rows validate the
 *protocol* (sharded execution, halo collectives, invariant step counts) —
 virtual devices emulate collectives through the host, so their absolute
-throughput and efficiency are meaningless.  Real scaling numbers require a
-real multi-chip slice, where the same script runs unchanged.
+throughput and efficiency are meaningless.  Real scaling numbers require
+several GPUs, where the same script runs unchanged.
 """
 
 import argparse
@@ -53,20 +53,20 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from porousfreezethaw_tpu.cases import freezing_params_text
-    from porousfreezethaw_tpu.config import parse_param_file
-    from porousfreezethaw_tpu.core.grid import GridGeometry
-    from porousfreezethaw_tpu.models.freezing import (
+    from porousfreezethaw.cases import freezing_params_text
+    from porousfreezethaw.config import parse_param_file
+    from porousfreezethaw.core.grid import GridGeometry
+    from porousfreezethaw.models.freezing import (
         FreezingParams, build_initial_conditions, make_rhs,
         shift_temperature_origin)
-    from porousfreezethaw_tpu.parallel.halo import make_shard_map_rhs, shard_spec
-    from porousfreezethaw_tpu.parallel.sharding import (
+    from porousfreezethaw.parallel.halo import make_shard_map_rhs, shard_spec
+    from porousfreezethaw.parallel.sharding import (
         make_mesh, shard_freezing_state)
-    from porousfreezethaw_tpu.solvers.merson import (
+    from porousfreezethaw.solvers.merson import (
         MersonParams, merson_init, merson_solve)
 
     pf = parse_param_file(freezing_params_text(grid_nodes=args.grid_nodes),
-                          env={"OUTPUT": "/tmp"})
+                          env={"OUTPUT": "."})
     prm0 = FreezingParams.from_dict(pf.vars)
     prm = shift_temperature_origin(prm0, prm0.u_star)
 
@@ -110,11 +110,8 @@ def main():
         wall = time.time() - t0
         done = int(state.steps_total) - n0
         evals = 5.0 * geom.num_cells * done / wall
-        from porousfreezethaw_tpu.parallel.fused import halo_bytes_per_attempt
         rows.append({"devices": nz, "cell_rhs_evals_per_s": evals,
-                     "wall_s": wall, "attempts": done,
-                     "ici_halo_bytes_per_attempt":
-                         halo_bytes_per_attempt(geom) if nz > 1 else 0})
+                     "wall_s": wall, "attempts": done})
         print(f"z={nz}: {evals:.3e} evals/s ({wall:.2f}s)", file=sys.stderr)
 
     base = rows[0]["cell_rhs_evals_per_s"]

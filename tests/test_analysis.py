@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from porousfreezethaw_tpu.analysis import (
+from porousfreezethaw.analysis import (
     eps_s, freezing_point_statistic, ice_volume_fraction, series_statistics)
-from porousfreezethaw_tpu.core.grid import GridGeometry
-from porousfreezethaw_tpu.io import exporters
-from porousfreezethaw_tpu.io.snapshots import write_snapshot
-from porousfreezethaw_tpu.solvers import dopri45_solve, MersonParams, merson_init, merson_solve
+from porousfreezethaw.core.grid import GridGeometry
+from porousfreezethaw.io import exporters
+from porousfreezethaw.io.snapshots import write_snapshot
+from porousfreezethaw.solvers import dopri45_solve, MersonParams, merson_init, merson_solve
 
 from tests.test_freezing_equation import default_params
 
@@ -130,7 +130,7 @@ class TestDopri:
     def test_cross_validates_merson_on_dem(self):
         """The two independent integrators must agree on a small DEM drop —
         the reference's C-vs-MATLAB redundancy check (SURVEY §4.3)."""
-        from porousfreezethaw_tpu.models.dem import DEMConfig, make_dem_rhs
+        from porousfreezethaw.models.dem import DEMConfig, make_dem_rhs
         cfg = DEMConfig(variant="basic", n=1)
         y0 = {"pos": jnp.asarray([[0.5, 0.5, 0.3]], jnp.float64),
               "vel": jnp.zeros((1, 3), jnp.float64)}

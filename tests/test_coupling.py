@@ -13,12 +13,12 @@ import os
 import numpy as np
 import pytest
 
-from porousfreezethaw_tpu.apps.intertrack import main as intertrack_main
-from porousfreezethaw_tpu.apps.spheres import main as spheres_main
-from porousfreezethaw_tpu.cases import freezing_params_text
-from porousfreezethaw_tpu.io.netcdf3 import read_netcdf
-from porousfreezethaw_tpu.models.dem.coupling import write_final_positions
-from porousfreezethaw_tpu.models.freezing.glass import read_ball_positions
+from porousfreezethaw.apps.intertrack import main as intertrack_main
+from porousfreezethaw.apps.spheres import main as spheres_main
+from porousfreezethaw.cases import freezing_params_text
+from porousfreezethaw.io.netcdf3 import read_netcdf
+from porousfreezethaw.models.dem.coupling import write_final_positions
+from porousfreezethaw.models.freezing.glass import read_ball_positions
 
 
 class TestFinalPositionsWriter:

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from porousfreezethaw_tpu.core.grid import GridGeometry
-from porousfreezethaw_tpu.models.freezing import make_rhs
-from porousfreezethaw_tpu.models.freezing.delta import make_g_rhs
+from porousfreezethaw.core.grid import GridGeometry
+from porousfreezethaw.models.freezing import make_rhs
+from porousfreezethaw.models.freezing.delta import make_g_rhs
 
 from tests.test_freezing_equation import default_params
 
@@ -114,163 +114,78 @@ def test_f32_estimator_floor_removed(case, mode):
     assert err_delta < err_classic / factor, (err_delta, err_classic)
 
 
-class TestDeltaAttemptPallas:
-    """Pallas increment-form kernels (interpret mode) vs the XLA oracle."""
-
-    def _padded(self, case):
-        from porousfreezethaw_tpu.ops.pallas.stencil import pad_state
-        geom, prm, w, _ = case
-        w32 = jnp.asarray(w, jnp.float32)
-        return geom, prm, w32, pad_state(w32, geom)
-
-    @pytest.mark.parametrize("mode", [0, 1, 2])
-    def test_attempt_matches_xla(self, case, mode):
-        from porousfreezethaw_tpu.ops.pallas.stencil import (
-            make_delta_attempt, unpad_state)
-        geom, prm, w32, wp = self._padded(case)
-        att = make_delta_attempt(geom, prm, mode, bz=2, interpret=True)
-        # h large enough that the true estimate sits well above the G
-        # paths' relative rounding (Pallas and XLA sum faces in
-        # different orders)
-        t, h = 100.0, 0.05
-        (y0, y_spec_p), eps_blocks = att.attempt(
-            jnp.asarray(t, jnp.float64), jnp.asarray(h, jnp.float64), wp)
-        got_eps = float(jnp.max(eps_blocks))
-        y_spec = np.asarray(unpad_state(y_spec_p, geom))
-
-        # XLA replication of the increment algebra in f32
-        rhs = make_rhs(geom, prm, calc_mode=mode)
-        g = make_g_rhs(geom, prm, calc_mode=mode)
-        hh = jnp.asarray(h, jnp.float32)
-        K1 = rhs(t, w32)[:2]
-        G2 = g(t, t + h / 3, w32, hh / 3 * K1)
-        G3 = g(t, t + h / 3, w32, hh * (K1 / 3 + G2 / 6))
-        G4 = g(t, t + h / 2, w32, hh * (K1 / 2 + 0.375 * G3))
-        G5 = g(t, t + h, w32, hh * (K1 - 1.5 * G3 + 2 * G4))
-        est = np.asarray(-0.9 * G3 + 0.8 * G4 - 0.1 * G5)
-        want_eps = float(np.abs(est).max())
-        want_y = np.asarray(w32[:2] + hh * K1
-                            + hh / 3 * (2 * G4 + 0.5 * G5))
-        assert abs(got_eps - want_eps) <= 1e-3 * want_eps + 1e-7
-        np.testing.assert_allclose(y_spec, want_y, rtol=1e-5, atol=1e-5)
-
-    @pytest.mark.parametrize("mode", [0, 2])
-    def test_xla_delta_attempt_matches_pallas(self, case, mode):
-        """XlaDeltaAttempt (the golden-guard oracle / CPU path) and the
-        Pallas DeltaAttempt implement the same attempt: same speculative
-        state and error max up to layout-induced summation order."""
-        from porousfreezethaw_tpu.models.freezing.delta import (
-            XlaDeltaAttempt)
-        from porousfreezethaw_tpu.ops.pallas.stencil import (
-            make_delta_attempt, unpad_state)
-        geom, prm, w32, wp = self._padded(case)
-        t, h = 100.0, 0.05
-        pal = make_delta_attempt(geom, prm, mode, bz=2, interpret=True)
-        (_, spec_p), eps_p = pal.attempt(jnp.asarray(t, jnp.float64),
-                                         jnp.asarray(h, jnp.float64), wp)
-        xla = XlaDeltaAttempt(geom, prm, mode)
-        (_, spec_x), eps_x = xla.attempt(jnp.asarray(t, jnp.float64),
-                                         jnp.asarray(h, jnp.float64), w32)
-        np.testing.assert_allclose(
-            np.asarray(unpad_state(spec_p, geom)), np.asarray(spec_x),
-            rtol=1e-5, atol=1e-5)
-        a, b = float(jnp.max(eps_p)), float(jnp.max(eps_x))
-        assert abs(a - b) <= 1e-3 * max(a, b) + 1e-7
-
-    def test_solver_integration_tracks_f64(self, case):
-        """merson_solve over the DeltaAttempt path (f32) must track the
-        f64 reference trajectory and step counts on the stiff GradP
-        model."""
-        from porousfreezethaw_tpu.ops.pallas.stencil import (
-            make_delta_attempt, pad_state, unpad_state)
-        from porousfreezethaw_tpu.solvers.merson import (
-            MersonParams, merson_init, merson_solve)
-        geom, prm, w, _ = case
-        params = MersonParams(delta=1e-3, h_min=1e-9, max_steps=200)
-
-        st64, status64 = merson_solve(
-            make_rhs(geom, prm, calc_mode=0),
-            merson_init(jnp.asarray(w, jnp.float64), 0.0, 1e-4),
-            0.05, params)
-        assert int(status64) == 0
-
-        att = make_delta_attempt(geom, prm, 0, bz=2, interpret=True)
-        wp = pad_state(jnp.asarray(w, jnp.float32), geom)
-        st32, status32 = merson_solve(
-            None, merson_init(wp, 0.0, 1e-4), 0.05, params,
-            attempt_fn=att)
-        assert int(status32) == 0
-        # step counts within a few of the f64 truth (no noise floor)
-        assert abs(int(st32.steps) - int(st64.steps)) <= max(
-            3, int(0.1 * int(st64.steps)))
-        y32 = np.asarray(unpad_state(st32.y, geom))
-        y64 = np.asarray(st64.y)
-        scale = np.abs(y64[:2]).max()
-        assert np.abs(y32[:2] - y64[:2]).max() / scale < 1e-4
+def _classic_attempt(rhs, t, h, w):
+    """One classic Merson attempt (solvers/merson.py stage algebra):
+    the speculative (u, p) update and the error max."""
+    K1 = rhs(t, w)
+    K2 = rhs(t + h / 3, w + (h / 3) * K1)
+    K3 = rhs(t + h / 3, w + (h / 6) * (K1 + K2))
+    K4 = rhs(t + h / 2, w + (h / 8) * (K1 + 3 * K3))
+    K5 = rhs(t + h, w + h * (0.5 * K1 - 1.5 * K3 + 2 * K4))
+    eps = jnp.max(jnp.abs(0.2 * K1 - 0.9 * K3 + 0.8 * K4 - 0.1 * K5)[:2])
+    y = w + (h / 3) * (0.5 * (K1 + K5) + 2 * K4)
+    return y[:2], eps
 
 
-class TestCompensatedCommit:
-    """The compensated (double-f32) commit variants: XlaDeltaAttemptComp
-    (oracle) and the Pallas DeltaAttemptComp (emit="dy" tail + TwoSum
-    accumulation) — round 5."""
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("mode", MODES)
+def test_xla_delta_attempt_matches_classic_f64(case, mode, dtype):
+    """One XlaDeltaAttempt (the app's f32 production attempt) against the
+    classic f64 Merson attempt at the same h: same speculative state and
+    error max.  f64 agrees to rounding; f32 to its state quantization
+    (|w| ~ 300 K at ulp 3e-5) — the estimator itself carries no floor."""
+    from porousfreezethaw.models.freezing.delta import XlaDeltaAttempt
+    geom, prm, w, _ = case
+    t, h = 100.0, 0.05
+    want_y, want_eps = _classic_attempt(
+        make_rhs(geom, prm, calc_mode=mode), t, h, jnp.asarray(w))
+    want_y, want_eps = np.asarray(want_y), float(want_eps)
 
-    def _padded(self, case):
-        from porousfreezethaw_tpu.ops.pallas.stencil import pad_state
-        geom, prm, w, _ = case
-        w32 = jnp.asarray(w, jnp.float32)
-        return geom, prm, w32, pad_state(w32, geom)
+    dt = jnp.float32 if dtype == "f32" else jnp.float64
+    att = XlaDeltaAttempt(geom, prm, mode)
+    y = jnp.asarray(w, dt)
+    (_, spec), eps = att.attempt(jnp.asarray(t, jnp.float64),
+                                 jnp.asarray(h, jnp.float64), y)
+    got_eps = float(jnp.max(eps))
+    scale = np.abs(want_y).max(axis=(1, 2, 3), keepdims=True)
+    tol = 1e-6 if dtype == "f32" else 1e-12
+    np.testing.assert_allclose(np.asarray(spec, np.float64) / scale,
+                               want_y / scale, rtol=0, atol=tol)
+    eps_tol = 2e-3 if dtype == "f32" else 1e-8
+    assert abs(got_eps - want_eps) <= eps_tol * want_eps + 1e-9, (
+        got_eps, want_eps)
 
-    def test_xla_comp_eps_matches_plain(self, case):
-        """Same estimator as the plain delta attempt (only the commit
-        changes); the committed hi state equals fl32(exact sum)."""
-        from porousfreezethaw_tpu.models.freezing.delta import (
-            XlaDeltaAttempt, XlaDeltaAttemptComp)
-        geom, prm, w32, _ = self._padded(case)
-        t, h = 100.0, 0.05
-        plain = XlaDeltaAttempt(geom, prm, 0)
-        comp = XlaDeltaAttemptComp(geom, prm, 0)
-        (_, spec), eps_a = plain.attempt(t, h, w32)
-        y5 = comp.pack(w32)
-        assert comp.pack(y5).shape == y5.shape     # idempotent
-        (_, dy), eps_b = comp.attempt(t, h, y5)
-        np.testing.assert_allclose(float(jnp.max(eps_a)),
-                                   float(jnp.max(eps_b)), rtol=1e-6)
-        committed = comp.commit((y5, dy), jnp.asarray(True))
-        # hi + lo == exact f64 sum of hi0 + dy to ~ulp^2
-        exact = (np.asarray(w32[:2], np.float64)
-                 + np.asarray(dy, np.float64))
-        got = (np.asarray(committed[:2], np.float64)
-               + np.asarray(committed[3:], np.float64))
-        np.testing.assert_allclose(got, exact, rtol=0, atol=1e-12)
-        # reject keeps everything
-        kept = comp.commit((y5, dy), jnp.asarray(False))
-        np.testing.assert_array_equal(np.asarray(kept), np.asarray(y5))
+    kept = att.commit((y, spec), jnp.asarray(False))
+    np.testing.assert_array_equal(np.asarray(kept), np.asarray(y))
+    taken = att.commit((y, spec), jnp.asarray(True))
+    np.testing.assert_array_equal(np.asarray(taken[:2]), np.asarray(spec))
+    np.testing.assert_array_equal(np.asarray(taken[2]), np.asarray(y[2]))
 
-    def test_pallas_comp_matches_xla_comp(self, case):
-        """Pallas DeltaAttemptComp == XlaDeltaAttemptComp: same dy (up
-        to layout summation order), same eps, same committed (hi, lo)."""
-        from porousfreezethaw_tpu.models.freezing.delta import (
-            XlaDeltaAttemptComp)
-        from porousfreezethaw_tpu.ops.pallas.stencil import (
-            make_delta_attempt, unpad_state)
-        geom, prm, w32, wp = self._padded(case)
-        t, h = 100.0, 0.05
-        pal = make_delta_attempt(geom, prm, 0, bz=2, interpret=True,
-                                 compensated=True)
-        y5p = pal.pack(wp)
-        assert y5p.shape[0] == 5
-        (_, dy_p), eps_p = pal.attempt(jnp.asarray(t, jnp.float64),
-                                       jnp.asarray(h, jnp.float64), y5p)
-        xla = XlaDeltaAttemptComp(geom, prm, 0)
-        y5x = xla.pack(w32)
-        (_, dy_x), eps_x = xla.attempt(t, h, y5x)
-        np.testing.assert_allclose(
-            np.asarray(unpad_state(dy_p, geom)), np.asarray(dy_x),
-            rtol=1e-5, atol=1e-6)
-        a, b = float(jnp.max(eps_p)), float(jnp.max(eps_x))
-        assert abs(a - b) <= 1e-3 * max(a, b) + 1e-7
-        com_p = pal.commit((y5p, dy_p), jnp.asarray(True))
-        com_x = xla.commit((y5x, dy_x), jnp.asarray(True))
-        np.testing.assert_allclose(
-            np.asarray(unpad_state(com_p[:3], geom)),
-            np.asarray(com_x[:3]), rtol=1e-5, atol=1e-6)
+
+def test_delta_solve_tracks_f64(case):
+    """merson_solve over XlaDeltaAttempt in f32 tracks the f64 classic
+    trajectory and step counts on the stiff GradP model."""
+    from porousfreezethaw.models.freezing.delta import XlaDeltaAttempt
+    from porousfreezethaw.solvers.merson import (
+        MersonParams, merson_init, merson_solve)
+    geom, prm, w, _ = case
+    params = MersonParams(delta=1e-3, h_min=1e-9, max_steps=200)
+
+    st64, status64 = merson_solve(
+        make_rhs(geom, prm, calc_mode=0),
+        merson_init(jnp.asarray(w, jnp.float64), 0.0, 1e-4),
+        0.05, params)
+    assert int(status64) == 0
+
+    att = XlaDeltaAttempt(geom, prm, 0)
+    st32, status32 = merson_solve(
+        None, merson_init(jnp.asarray(w, jnp.float32), 0.0, 1e-4), 0.05,
+        params, attempt_fn=att)
+    assert int(status32) == 0
+    # step counts within a few of the f64 truth (no noise floor)
+    assert abs(int(st32.steps) - int(st64.steps)) <= max(
+        3, int(0.1 * int(st64.steps)))
+    y32 = np.asarray(st32.y)
+    y64 = np.asarray(st64.y)
+    scale = np.abs(y64[:2]).max()
+    assert np.abs(y32[:2] - y64[:2]).max() / scale < 1e-4

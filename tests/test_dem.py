@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from porousfreezethaw_tpu.models.dem import (
+from porousfreezethaw.models.dem import (
     DEMConfig, icond_2spheres, icond_dense, icond_sparse, make_dem_rhs)
-from porousfreezethaw_tpu.solvers import MersonParams, merson_init, merson_solve
+from porousfreezethaw.solvers import MersonParams, merson_init, merson_solve
 
 
 def numpy_dem_rhs(cfg, y):
@@ -237,9 +237,8 @@ def test_device_buffer_matches_host_loop(tmp_path):
     """--device-buffer (lax.scan over snapshot targets, one dispatch per
     batch) must reproduce the per-snapshot host loop byte-for-byte —
     merson_solve's continuation-h contract threads through the scan
-    carry exactly like through the host loop (round 5; collapses the
-    per-snapshot round trips that dominate remote-TPU settle walls)."""
-    from porousfreezethaw_tpu.apps.spheres import main as spheres_main
+    carry exactly like through the host loop."""
+    from porousfreezethaw.apps.spheres import main as spheres_main
     a = tmp_path / "host"
     b = tmp_path / "buffered"
     base = ["--variant", "friction_angular", "--n", "12",

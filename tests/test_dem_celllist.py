@@ -1,7 +1,7 @@
 """Cell-list neighbor structure vs the masked-dense oracle.
 
 The reference DEM is an O(n^2) cutoff scan (spheres_basic.c:222-286);
-SURVEY §2.6 tasks the TPU build with a scalable neighbor structure whose
+SURVEY §2.6 tasks this build with a scalable neighbor structure whose
 results match the dense form exactly (same pairs found — only the
 summation order over neighbors differs).
 """
@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from porousfreezethaw_tpu.models.dem import (
+from porousfreezethaw.models.dem import (
     DEMConfig, icond_dense, make_cell_list, make_dem_rhs)
-from porousfreezethaw_tpu.solvers import MersonParams, merson_init, merson_solve
+from porousfreezethaw.solvers import MersonParams, merson_init, merson_solve
 
 
 def settled_like_state(cfg, seed=0):
@@ -82,7 +82,7 @@ def test_dense_icond_fits_cell_bounds(n):
     old n^(1/3)-layer height model clipped large-n initial blocks into
     the top cell layer, overflowing capacity and silently dropping
     pairs)."""
-    from porousfreezethaw_tpu.models.dem import make_cell_lanes
+    from porousfreezethaw.models.dem import make_cell_lanes
     r = 0.1 if n <= 400 else 0.1 * (200.0 / n) ** (1.0 / 3.0)
     cfg = DEMConfig(variant="friction_angular", n=n, r=r)
     y0, _ = icond_dense(cfg, seed=0)
@@ -109,7 +109,7 @@ def test_large_n_smoke():
 
 @pytest.mark.parametrize("variant", ["basic", "friction_angular"])
 def test_cell_roll_matches_dense(variant):
-    """The TPU-shaped cell-ROLL strategy (cell-major grid + 27 rolls, no
+    """The cell-ROLL strategy (cell-major grid + 27 rolls, no
     gathers in the pair loop) finds the same pairs as the dense oracle."""
     cfg = DEMConfig(variant=variant, n=100, r=0.1)
     y = settled_like_state(cfg)

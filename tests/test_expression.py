@@ -5,7 +5,7 @@ import math
 import numpy as np
 import pytest
 
-from porousfreezethaw_tpu.config.expression import (
+from porousfreezethaw.config.expression import (
     Evaluator, Expression, ExpressionError)
 
 

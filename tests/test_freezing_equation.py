@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from porousfreezethaw_tpu.core.grid import GridGeometry
-from porousfreezethaw_tpu.models.freezing import (
+from porousfreezethaw.core.grid import GridGeometry
+from porousfreezethaw.models.freezing import (
     CalcMode, FreezingParams, make_rhs)
-from porousfreezethaw_tpu.models.freezing.parameters import PARAM_NAMES
+from porousfreezethaw.models.freezing.parameters import PARAM_NAMES
 
 
 def default_params(**over):

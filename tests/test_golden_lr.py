@@ -10,13 +10,14 @@ line (1850 / 2256).
 
 This is ~1 minute of CPU time (the heaviest test in the suite); the
 full 10-hour-case comparison lives in VALIDATION.md (produced by
-scripts/run_golden_lr.sh + scripts/compare_golden.py on the TPU).
+scripts/run_golden_lr.sh + scripts/compare_golden.py).  chip_smoke.py
+repeats both snapshot-1 checks on the GPU.
 """
 
 import os
 import re
 
-from porousfreezethaw_tpu.apps.intertrack import main
+from porousfreezethaw.apps.intertrack import main
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "golden", "Params-LR-Temp")
@@ -50,9 +51,9 @@ def test_lr_temp_snapshot1_step_counts(tmp_path):
     assert m, log[-2000:]
     successful, total = int(m[1]), int(m[2])
 
-    # f64 tracks the reference within a few steps-per-thousand (the
-    # TPU run measured 1809/2233 at snapshot 1 — 2.2% low — converging
-    # to 0.06% relative by snapshot 25).  Allow 5%: snapshot 1 is the
+    # f64 tracks the reference within a few steps-per-thousand (an
+    # earlier accelerator run measured 1809/2233 at snapshot 1 — 2.2%
+    # low — converging to 0.06% relative by snapshot 25).  Allow 5%: snapshot 1 is the
     # worst point of the trajectory and a platform/XLA change shifting
     # FP summation order can move it by a few more per-mille; the full
     # golden runs in VALIDATION.md pin the tight end-of-run numbers.
@@ -71,9 +72,8 @@ GRADP_REF_SUCCESSFUL, GRADP_REF_TOTAL = 3560, 4322
 @pytest.mark.slow
 def test_lr_gradp_delta_snapshot1_step_counts():
     """GradP snapshot-1 golden guard for the increment-form (delta)
-    numerics — the production f32 GradP path.  Drives the XLA oracle of
-    the delta algebra (models/freezing/delta.py::XlaDeltaAttempt, the
-    exact algebra the Pallas DeltaAttempt kernels fuse) through one
+    numerics — the production f32 GradP path.  Drives the app's delta
+    attempt (models/freezing/delta.py::XlaDeltaAttempt) through one
     reference snapshot interval in f32 with the EXACT reference
     step-control rule and pins the step counts: an error anywhere in the
     280 lines of hand-derived increment expansions shows up here as a
@@ -84,14 +84,14 @@ def test_lr_gradp_delta_snapshot1_step_counts():
     import jax.numpy as jnp
     import numpy as np
 
-    from porousfreezethaw_tpu.config import parse_param_file
-    from porousfreezethaw_tpu.core.grid import GridGeometry
-    from porousfreezethaw_tpu.models.freezing import (
+    from porousfreezethaw.config import parse_param_file
+    from porousfreezethaw.core.grid import GridGeometry
+    from porousfreezethaw.models.freezing import (
         FreezingParams, build_glass_field, build_initial_conditions,
         shift_temperature_origin)
-    from porousfreezethaw_tpu.models.freezing.delta import XlaDeltaAttempt
-    from porousfreezethaw_tpu.models.freezing.glass import read_ball_positions
-    from porousfreezethaw_tpu.solvers.merson import (
+    from porousfreezethaw.models.freezing.delta import XlaDeltaAttempt
+    from porousfreezethaw.models.freezing.glass import read_ball_positions
+    from porousfreezethaw.solvers.merson import (
         MersonParams, merson_init, merson_solve)
 
     pf = parse_param_file(open(GOLDEN_GRADP).read(), env={"OUTPUT": "/tmp"})

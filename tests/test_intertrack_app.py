@@ -14,9 +14,9 @@ import stat
 import numpy as np
 import pytest
 
-from porousfreezethaw_tpu.apps.intertrack import main
-from porousfreezethaw_tpu.cases import freezing_params_text
-from porousfreezethaw_tpu.io.netcdf3 import read_netcdf
+from porousfreezethaw.apps.intertrack import main
+from porousfreezethaw.cases import freezing_params_text
+from porousfreezethaw.io.netcdf3 import read_netcdf
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BALLS = os.path.join(REPO, "data", "spheres_positions.txt")
@@ -170,10 +170,10 @@ class TestF32OverflowRecovery:
     def test_f32_big_tau_cold_start_completes(self, tmp_path):
         """An f32 run whose initial tau overflows the stage cascade must
         recover through the app's default NaN backoff instead of
-        spinning at h = 0 forever (the zero-h trap that killed the MR
-        production run on TPU; the reference C solver loops forever in
-        the same state — intertrack.c:2193 ships its recovery commented
-        out, safe only in f64)."""
+        spinning at h = 0 forever (an on-device loop that never
+        returns; the reference C solver loops forever in the same
+        state — intertrack.c:2193 ships its recovery commented out,
+        safe only in f64)."""
         # tau far above the stable step: the GradP cascade overflows f32
         params = BASE + "\ntau 1e6\n"
         rc = run_app(tmp_path, params, argv_extra=["--precision", "f32"])
@@ -184,89 +184,105 @@ class TestF32OverflowRecovery:
         assert np.all(np.isfinite(data.variables["u"]))
 
 
-def test_fused_interpret_paths_on_cpu(tmp_path, monkeypatch):
-    """PFT_FUSED_INTERPRET=1 drives the production fused Pallas path
-    (increment-form delta attempt for GradP f32) through the full app on
-    CPU in interpret mode — integration coverage of the code path a chip
-    run takes."""
-    monkeypatch.setenv("PFT_FUSED_INTERPRET", "1")
+def _log(path):
+    return (path / "intertrack.log").read_text()
+
+
+def _final_steps(log):
+    import re
+    m = re.search(r"Successful R-K steps: (\d+) of (\d+) total", log)
+    return int(m[1]), int(m[2])
+
+
+def test_fused_interpret_paths_on_cpu(tmp_path):
+    """An f32 run takes the production increment-form (delta) attempt on
+    every platform — the code path a GPU run takes."""
     rc = run_app(tmp_path, BASE, ("--precision", "f32"))
     assert rc == 0
-    log = (tmp_path / "intertrack.log").read_text()
-    assert "increment-form (delta) attempt: ON" in log
+    log = _log(tmp_path)
+    assert "Increment-form (delta) attempt: ON" in log
+    assert "accept-side minimum h growth" not in log  # exact reference rule
     assert (tmp_path / "image.002.ncd").exists()
     u = read_netcdf(str(tmp_path / "image.002.ncd")).variables["u"]
     assert np.isfinite(np.asarray(u)).all()
 
 
-def test_increment_form_opt_out_selects_classic(tmp_path, monkeypatch):
-    """`increment_form 0` restores the classic stage kernels and
-    re-enables the documented noise-floor escape default (the delta
-    attempt is the f32 default for all models as of round 4)."""
-    monkeypatch.setenv("PFT_FUSED_INTERPRET", "1")
+def test_increment_form_opt_out_selects_classic(tmp_path):
+    """`increment_form 0` restores the classic make_rhs stages and
+    re-enables the documented noise-floor escape default."""
     rc = run_app(tmp_path, BASE + "\nincrement_form\t0\n",
                  ("--precision", "f32"))
     assert rc == 0
-    log = (tmp_path / "intertrack.log").read_text()
-    assert "Fused Pallas stage kernel: ON" in log
-    assert "increment-form (delta) attempt" not in log
+    log = _log(tmp_path)
+    assert "Increment-form (delta) attempt" not in log
     assert "accept-side minimum h growth 1.05" in log
     assert (tmp_path / "image.002.ncd").exists()
 
 
-def test_fused_interpret_sharded_delta_matches_single(tmp_path, monkeypatch):
-    """The app under ``--mesh z`` keeps the increment form (no silent
-    fallback to the classic kernels — VERDICT r3 §1) and reproduces the
-    single-device delta run's snapshots byte-for-byte (rank-count
-    invariance, SURVEY §4.2)."""
-    monkeypatch.setenv("PFT_FUSED_INTERPRET", "1")
+def _compare_mesh_run(tmp_path, mesh, mesh_log):
+    """f32 delta run on a mesh against the same run on one device: equal
+    step counts and fields to f32 rounding.  The sharded program fuses
+    differently (FMA contraction), so the fields are not bitwise."""
     single = tmp_path / "single"
     sharded = tmp_path / "sharded"
     single.mkdir()
     sharded.mkdir()
     assert run_app(single, BASE, ("--precision", "f32")) == 0
     assert run_app(sharded, BASE, ("--precision", "f32",
-                                   "--mesh", "z4")) == 0
-    log = (sharded / "intertrack.log").read_text()
-    assert "increment-form (delta) attempt: ON" in log
-    assert "(sharded over z=4)" in log
-    for name in ("image.001.ncd", "image.002.ncd"):
-        a = (single / name).read_bytes()
-        b = (sharded / name).read_bytes()
-        assert a == b, f"{name} differs between single and z4 mesh"
-
-
-def test_fused_interpret_2d_mesh(tmp_path, monkeypatch):
-    """The app under ``--mesh z2,y2`` takes the 2-D sharded delta path
-    (round 5) and reproduces the single-device run's step counts and
-    fields (to the documented FMA-contraction ulps — see
-    tests/test_sharded_delta_2d.py for the exact contract)."""
-    monkeypatch.setenv("PFT_FUSED_INTERPRET", "1")
-    # a plane large enough for >= 8 lane rows per y-shard
-    params = BASE + "\nn1 64\nn2 50\nn3 8\n"
-    single = tmp_path / "single"
-    sharded = tmp_path / "sharded"
-    single.mkdir()
-    sharded.mkdir()
-    assert run_app(single, params, ("--precision", "f32")) == 0
-    assert run_app(sharded, params, ("--precision", "f32",
-                                     "--mesh", "z2,y2")) == 0
-    log = (sharded / "intertrack.log").read_text()
-    assert "(sharded over z=2, y=2)" in log
-    s_log = (single / "intertrack.log").read_text()
-    import re
-    steps = lambda t: [int(m[0]) for m in
-                       re.findall(r"(\d+) R-K steps \((\d+) total\)", t)]
-    got, want = steps(log)[-1], steps(s_log)[-1]
-    # individual accept decisions at tolerance boundaries may flip
-    # within the documented FMA-contraction ulps; run-level counts stay
-    # within a few steps (the unit suite asserts exact equality over a
-    # fixed window — tests/test_sharded_delta_2d.py)
-    assert abs(got - want) <= max(2, want // 20), (got, want)
+                                   "--mesh", mesh)) == 0
+    log = _log(sharded)
+    assert "Increment-form (delta) attempt: ON" in log
+    assert mesh_log in log
+    assert _final_steps(log) == _final_steps(_log(single))
     for name in ("image.001.ncd", "image.002.ncd"):
         a = read_netcdf(str(single / name))
         b = read_netcdf(str(sharded / name))
         for v in ("u", "p", "gl"):
             np.testing.assert_allclose(
                 np.asarray(b.variables[v]), np.asarray(a.variables[v]),
-                rtol=1e-3, atol=5e-3)
+                rtol=1e-5, atol=1e-5)
+
+
+def test_fused_interpret_sharded_delta_matches_single(tmp_path):
+    """The app under ``--mesh z4`` keeps the increment form and
+    reproduces the single-device run (rank-count invariance, SURVEY
+    §4.2), writing its snapshots gather-free."""
+    _compare_mesh_run(tmp_path, "z4", "Device mesh: {'z': 4}")
+
+
+def test_fused_interpret_2d_mesh(tmp_path):
+    """The app under ``--mesh z2,y2`` (a 2-D decomposition the reference
+    cannot do, intertrack.c:1780-1789) reproduces the single-device
+    run."""
+    _compare_mesh_run(tmp_path, "z2,y2", "Device mesh: {'z': 2, 'y': 2}")
+
+
+@pytest.mark.parametrize("mesh", [None, "z2"])
+@pytest.mark.parametrize("increment_form", [0, 1])
+@pytest.mark.parametrize("precision", ["f32", "f64"])
+def test_attempt_choice(tmp_path, precision, increment_form, mesh):
+    """The attempt depends on (precision, increment_form) alone, never on
+    the platform or the mesh: f32 takes the increment form unless
+    `increment_form 0`; f64 always runs the classic stages under the
+    exact reference rule."""
+    argv = ("--precision", precision) + (("--mesh", mesh) if mesh else ())
+    params = BASE + f"\nincrement_form {increment_form}\n"
+    assert run_app(tmp_path, params, argv) == 0
+    log = _log(tmp_path)
+    delta = precision == "f32" and increment_form == 1
+    assert ("Increment-form (delta) attempt: ON" in log) == delta
+    escape = precision == "f32" and increment_form == 0
+    assert ("accept-side minimum h growth 1.05" in log) == escape
+    assert ("Device mesh: {'z': 2}" in log) == (mesh is not None)
+    assert "completed successfully" in log
+
+
+def test_compensated_commit_is_an_error(tmp_path):
+    """The removed compensated commit is refused by name, not silently
+    replaced by another result."""
+    rc = run_app(tmp_path, BASE + "\ncompensated_commit 1\n",
+                 ("--precision", "f32"))
+    assert rc == 1
+    log = _log(tmp_path)
+    assert "compensated_commit has been removed" in log
+    assert not (tmp_path / "image.001.ncd").exists()

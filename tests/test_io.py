@@ -5,11 +5,11 @@ import os
 import numpy as np
 import pytest
 
-from porousfreezethaw_tpu.core.grid import GridGeometry
-from porousfreezethaw_tpu.io.netcdf3 import read_netcdf, write_netcdf
-from porousfreezethaw_tpu.io.snapshots import (
+from porousfreezethaw.core.grid import GridGeometry
+from porousfreezethaw.io.netcdf3 import read_netcdf, write_netcdf
+from porousfreezethaw.io.snapshots import (
     load_checkpoint, snapshot_filename, write_snapshot)
-from porousfreezethaw_tpu.io.csv_snaps import (
+from porousfreezethaw.io.csv_snaps import (
     read_dem_snapshot, snapshot_path, write_dem_snapshot)
 
 from tests.test_freezing_equation import default_params
@@ -103,8 +103,8 @@ class TestSnapshotContract:
         import jax
         import jax.numpy as jnp
 
-        from porousfreezethaw_tpu.io.snapshots import write_snapshot_sharded
-        from porousfreezethaw_tpu.parallel.sharding import (
+        from porousfreezethaw.io.snapshots import write_snapshot_sharded
+        from porousfreezethaw.parallel.sharding import (
             make_mesh, shard_freezing_state)
 
         geom = GridGeometry(0.03, 0.03, 0.06, 4, 4, 8)
@@ -126,7 +126,7 @@ class TestSnapshotContract:
 
     def test_block_writer_partial_runs(self, tmp_path):
         """write_block must handle blocks that do not span trailing dims."""
-        from porousfreezethaw_tpu.io.netcdf3 import (
+        from porousfreezethaw.io.netcdf3 import (
             NC_DOUBLE, create_netcdf, write_block)
         dims = {"a": 4, "b": 6, "c": 5}
         layouts = create_netcdf(str(tmp_path / "f.nc"), dims,
@@ -226,80 +226,48 @@ class TestGridFullMode:
                        total_snapshots=1)
         assert read_netcdf(path).dims == {"n3": 8, "n2": 4, "n1": 4}
 
-    def test_sharded_padded_write_matches_gathered(self, tmp_path):
-        """The fused/delta kernels' padded flat layout, z-sharded over
-        the CPU mesh, must write byte-identically to the gathered
-        writer applied to the unpadded + unshifted state (round 5: the
-        production mesh path never gathers the grid)."""
+    @pytest.mark.parametrize(
+        "spec", ["z8", "z4", "z2", "z2,y2", "z2,y4", "z4,y2"])
+    def test_sharded_shifted_write_matches_gathered(self, tmp_path, spec):
+        """An f32 state stored as u - u_star (the app's f32 layout),
+        sharded over the CPU mesh, writes byte-identically to the
+        gathered writer applied to the host-unshifted state: the per-shard
+        u_shift add rounds exactly as the app's gathered path does."""
         import jax
         import jax.numpy as jnp
 
-        from porousfreezethaw_tpu.io.snapshots import write_snapshot_sharded
-        from porousfreezethaw_tpu.ops.pallas.stencil import (
-            pad_state, unpad_state)
-        from porousfreezethaw_tpu.parallel.fused import padded_sharding
-        from porousfreezethaw_tpu.parallel.sharding import make_mesh
+        from porousfreezethaw.io.snapshots import write_snapshot_sharded
+        from porousfreezethaw.parallel.sharding import (
+            make_mesh, shard_freezing_state)
 
-        geom = GridGeometry(0.03, 0.03, 0.06, 5, 7, 8)  # forces lane pad
+        geom = GridGeometry(0.03, 0.03, 0.06, 5, 8, 8)
         prm = default_params()
         u_shift = 273.15
         fields = np.random.RandomState(3).random_sample(
             (3,) + geom.shape).astype(np.float32)
         kw = dict(calc_mode=0, delta=1e-3, tau=0.125, t=360.0,
                   final_time=36000.0, snapshot=5, total_snapshots=100,
-                  comment="Sharded padded")
+                  comment="Sharded shifted")
 
-        # the gathered reference: device unpad -> host f32 unshift
-        unpadded = np.asarray(unpad_state(
-            pad_state(jnp.asarray(fields), geom), geom))
-        unshifted = np.array(unpadded, copy=True)
+        unshifted = np.array(fields, copy=True)
         unshifted[0] += u_shift
         ref_path = str(tmp_path / "ref.ncd")
         write_snapshot(ref_path, geom, prm, unshifted, **kw)
 
-        for spec in ("z8", "z4", "z2"):
-            mesh = make_mesh(spec, devices=jax.devices()[:8])
-            w = jax.device_put(pad_state(jnp.asarray(fields), geom),
-                               padded_sharding(mesh))
-            path = str(tmp_path / f"padded_{spec}.ncd")
-            write_snapshot_sharded(path, geom, prm, w, u_shift=u_shift,
-                                   **kw)
-            assert (open(path, "rb").read()
-                    == open(ref_path, "rb").read()), spec
+        mesh = make_mesh(spec, devices=jax.devices()[:8])
+        w = shard_freezing_state(jnp.asarray(fields), mesh)
+        path = str(tmp_path / "sharded.ncd")
+        write_snapshot_sharded(path, geom, prm, w, u_shift=u_shift, **kw)
+        assert open(path, "rb").read() == open(ref_path, "rb").read()
 
-    def test_sharded_2d_padded_write_matches_gathered(self, tmp_path):
-        """The 2-D (z,y)-sharded padded flat layout writes gather-free
-        via per-(variable, z-plane) contiguous flat runs — byte
-        identical to the gathered writer (round 5)."""
-        import jax
+    def test_sharded_write_rejects_wrong_shape(self, tmp_path):
         import jax.numpy as jnp
 
-        from porousfreezethaw_tpu.io.snapshots import write_snapshot_sharded
-        from porousfreezethaw_tpu.parallel.fused import (
-            pad_state_2d, padded_sharding_2d, unpad_state_2d)
-        from porousfreezethaw_tpu.parallel.sharding import make_mesh
+        from porousfreezethaw.io.snapshots import write_snapshot_sharded
 
-        geom = GridGeometry(0.03, 0.03, 0.06, 24, 22, 8)
-        prm = default_params()
-        u_shift = 273.15
-        fields = np.random.RandomState(5).random_sample(
-            (3,) + geom.shape).astype(np.float32)
-        kw = dict(calc_mode=0, delta=1e-3, tau=0.125, t=360.0,
-                  final_time=36000.0, snapshot=5, total_snapshots=100,
-                  comment="Sharded 2d")
-
-        for spec in ("z2,y2", "z2,y4", "z4,y2"):
-            mesh = make_mesh(spec, devices=jax.devices()[:8])
-            ny = mesh.shape["y"]
-            padded = pad_state_2d(jnp.asarray(fields), geom, ny)
-            unshifted = np.array(
-                np.asarray(unpad_state_2d(padded, geom)), copy=True)
-            unshifted[0] += u_shift
-            ref_path = str(tmp_path / f"ref_{spec.replace(',', '_')}.ncd")
-            write_snapshot(ref_path, geom, prm, unshifted, **kw)
-            w = jax.device_put(padded, padded_sharding_2d(mesh))
-            path = str(tmp_path / f"p2d_{spec.replace(',', '_')}.ncd")
-            write_snapshot_sharded(path, geom, prm, w, u_shift=u_shift,
-                                   **kw)
-            assert (open(path, "rb").read()
-                    == open(ref_path, "rb").read()), spec
+        geom = GridGeometry(0.03, 0.03, 0.06, 4, 4, 8)
+        with pytest.raises(ValueError, match="does not match the grid"):
+            write_snapshot_sharded(
+                str(tmp_path / "x.ncd"), geom, default_params(),
+                jnp.zeros((3, 8, 4, 5)), calc_mode=0, delta=1e-3, tau=1.0,
+                t=0.0, final_time=1.0, snapshot=0, total_snapshots=1)

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from porousfreezethaw_tpu.solvers import (
+from porousfreezethaw.solvers import (
     MersonParams, merson_init, merson_solve, rk4_solve)
-from porousfreezethaw_tpu.solvers import merson as merson_mod
+from porousfreezethaw.solvers import merson as merson_mod
 
 
 def numpy_merson_reference(f, t, y, tf, h, delta, h_min=0.0, max_iter=100000):
@@ -328,9 +328,9 @@ class TestOverflowRecovery:
         GradP tau=1 cold start) must recover via the NaN backoff
         (RK_Asolver.c:96-131).  Without it, eps=inf drives the growth
         factor to 0 and h spins at exactly 0 forever (the reference
-        loops forever there too — on TPU the on-device spin kills the
-        worker), which is why the intertrack app enables handle_nan for
-        f32 runs."""
+        loops forever there too, and an on-device loop never returns),
+        which is why the intertrack app enables handle_nan for f32
+        runs."""
         # stiff decay: at h=1 the K cascade amplifies ~(h*k)^4*k ~ 1e40,
         # overflowing f32 through the stage-5 combination.  delta sits
         # above the f32 estimator noise floor k*ulp(y) ~ 12 (like the
@@ -356,7 +356,7 @@ class TestOverflowRecovery:
         growth rule pow(delta/inf, 0.2) = 0 makes new_h = 0 — and at
         h = 0 every subsequent attempt keeps h at exactly 0 (fac * 0),
         rejecting forever: reference-parity behavior where the C solver
-        loops forever (on TPU the on-device spin kills the worker).
+        loops forever (and an on-device loop never returns).
         handle_nan's h/10 backoff takes precedence over the zero growth
         factor and escapes the trap."""
         k = 1e12
@@ -451,3 +451,24 @@ class TestAcceptGrowthMin:
         # to well within the tolerance's global-error scale
         assert float(st2.y[0]) == pytest.approx(float(st.y[0]), rel=1e-4)
         assert int(st2.steps_total) <= int(st.steps_total) * 1.35
+
+
+class TestNanMax:
+    """The error max keeps a NaN from any shard (a GPU max all-reduce
+    drops NaN operands, which would let a poisoned step be accepted)."""
+
+    @pytest.mark.parametrize("where", [None, 0, 37, 63])
+    def test_nan_max_sharded(self, where):
+        from porousfreezethaw.parallel.sharding import make_mesh
+        from porousfreezethaw.solvers.merson import nan_max
+        from jax.sharding import NamedSharding, PartitionSpec as P
+        x = np.linspace(0.5, 2.0, 64)
+        if where is not None:
+            x[where] = np.nan
+        mesh = make_mesh("z8")
+        xs = jax.device_put(jnp.asarray(x), NamedSharding(mesh, P("z")))
+        got = float(jax.jit(nan_max)(xs))
+        if where is None:
+            assert got == 2.0
+        else:
+            assert np.isnan(got)

@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from porousfreezethaw_tpu.core.grid import GridGeometry
-from porousfreezethaw_tpu.models.freezing import make_rhs
-from porousfreezethaw_tpu.parallel.sharding import (
+from porousfreezethaw.core.grid import GridGeometry
+from porousfreezethaw.models.freezing import make_rhs
+from porousfreezethaw.parallel.sharding import (
     freezing_sharding, make_mesh, shard_freezing_state)
-from porousfreezethaw_tpu.solvers import MersonParams, merson_init, merson_solve
+from porousfreezethaw.solvers import MersonParams, merson_init, merson_solve
 
 from tests.test_freezing_equation import default_params
 
@@ -121,7 +121,7 @@ class TestExplicitHalo:
 
     @pytest.mark.parametrize("mode", [0, 2])
     def test_shard_map_rhs_matches(self, mode):
-        from porousfreezethaw_tpu.parallel.halo import (
+        from porousfreezethaw.parallel.halo import (
             make_shard_map_rhs, shard_spec)
         geom, prm, w0 = make_case()
         rhs_ref = make_rhs(geom, prm, mode)
@@ -134,7 +134,7 @@ class TestExplicitHalo:
         np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-15)
 
     def test_dirichlet_switch_through_shard_map(self):
-        from porousfreezethaw_tpu.parallel.halo import (
+        from porousfreezethaw.parallel.halo import (
             make_shard_map_rhs, shard_spec)
         geom, prm, w0 = make_case()
         mesh = make_mesh("z4")
@@ -147,7 +147,7 @@ class TestExplicitHalo:
             np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-15)
 
     def test_merson_through_shard_map(self):
-        from porousfreezethaw_tpu.parallel.halo import (
+        from porousfreezethaw.parallel.halo import (
             make_shard_map_rhs, shard_spec)
         geom, prm, w0 = make_case()
         mesh = make_mesh("z8")
@@ -174,7 +174,7 @@ class TestDEMSharded:
 
     @staticmethod
     def _setup(n=16):
-        from porousfreezethaw_tpu.models.dem import (
+        from porousfreezethaw.models.dem import (
             DEMConfig, icond_dense)
         cfg = DEMConfig(variant="friction_angular", n=n, r=0.1, T=0.5,
                         snapshots=3)
@@ -182,8 +182,8 @@ class TestDEMSharded:
         return cfg, {k: jnp.asarray(v) for k, v in y0.items()}
 
     def test_rhs_sharded_equals_single(self):
-        from porousfreezethaw_tpu.models.dem import make_dem_rhs
-        from porousfreezethaw_tpu.parallel.sharding import shard_dem_state
+        from porousfreezethaw.models.dem import make_dem_rhs
+        from porousfreezethaw.parallel.sharding import shard_dem_state
         cfg, y0 = self._setup()
         rhs = make_dem_rhs(cfg)
         want = jax.jit(lambda y: rhs(0.0, y))(y0)
@@ -196,8 +196,8 @@ class TestDEMSharded:
                                           np.asarray(want[k]))
 
     def test_merson_solve_mesh_invariant(self):
-        from porousfreezethaw_tpu.models.dem import make_dem_rhs
-        from porousfreezethaw_tpu.parallel.sharding import shard_dem_state
+        from porousfreezethaw.models.dem import make_dem_rhs
+        from porousfreezethaw.parallel.sharding import shard_dem_state
         cfg, y0 = self._setup()
         params = MersonParams(delta=cfg.delta, h_min=cfg.ht_min,
                               max_steps=4000)

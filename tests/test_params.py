@@ -1,22 +1,22 @@
 """Tests for the Params file interpreter (reference: modules/pparser, cparser)."""
 
+import os
+
 import numpy as np
 import pytest
 
-from porousfreezethaw_tpu.config.params import (
+from porousfreezethaw.config.params import (
     ParamError, batch_iterations, loop_suffix, parse_param_file)
-from porousfreezethaw_tpu.config.evsubst import ev_subst
+from porousfreezethaw.config.evsubst import ev_subst
 
 
-REFERENCE_PARAMS = None
+GOLDEN_GRADP = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "golden", "Params-LR-GradP")
 
 
 def _load_reference_params():
-    global REFERENCE_PARAMS
-    if REFERENCE_PARAMS is None:
-        with open("/root/reference/apps/intertrack-hybrid-S-freezing/Params") as f:
-            REFERENCE_PARAMS = f.read()
-    return REFERENCE_PARAMS
+    with open(GOLDEN_GRADP) as f:
+        return f.read()
 
 
 class TestEvSubst:
@@ -90,8 +90,10 @@ class TestParseBasics:
 
 
 class TestReferenceParams:
-    """Interpret the shipped reference Params file and check the derived
-    values against the documented LR case (SURVEY §2.5, BASELINE.md)."""
+    """Interpret the reference's shipped LR GradP case
+    (tests/golden/Params-LR-GradP, from Cases-LR.tgz) and check the
+    derived values against the documented LR case (SURVEY §2.5,
+    BASELINE.md)."""
 
     def test_full_parse(self):
         pf = parse_param_file(_load_reference_params(), env={"OUTPUT": "/tmp/o"})
@@ -108,11 +110,12 @@ class TestReferenceParams:
         assert v["tau_min"] == pytest.approx(1e-6)
         assert v["calc_mode"] == 0
         assert v["saved_files"] == 100
-        # derived geometry parameters
-        assert v["beads_scaling"] == pytest.approx(0.9 * 0.03)
-        assert v["ball_radius"] == pytest.approx(0.1 * 0.9 * 0.03)
+        # derived geometry parameters (this case: beads_scaling L1,
+        # xi_gl L3/300; the later definition of ball_radius wins)
+        assert v["beads_scaling"] == pytest.approx(0.03)
+        assert v["ball_radius"] == pytest.approx(0.1 * 0.03)
         assert v["xi"] == pytest.approx(0.06 / 100)
-        assert v["xi_gl"] == pytest.approx(0.06 / 500)
+        assert v["xi_gl"] == pytest.approx(0.06 / 300)
         assert v["alpha"] == pytest.approx(997 * 4.18e3)
         # settings & iconds
         assert pf.setting("out_file") == "/tmp/o/image"
@@ -121,7 +124,7 @@ class TestReferenceParams:
         assert "gl" in pf.icond_formulas
 
     def test_icond_u_evaluates(self):
-        from porousfreezethaw_tpu.config.expression import Expression
+        from porousfreezethaw.config.expression import Expression
         pf = parse_param_file(_load_reference_params(), env={})
         expr = Expression(pf.icond_formulas["u"])
         assert expr.evaluate({}) == pytest.approx(293.15)
